@@ -53,7 +53,7 @@ inline const char *duration_suffix() {
 // Unrecognized specs throw instead of silently falling back to the default
 // formatting: if a reference upstream ever grows a new spec (say "{:.10e}"),
 // a shim-built reference must fail LOUDLY rather than produce text that
-// differs from a genuine-fmt build (advisor r4).
+// differs from a genuine-fmt build.
 [[noreturn]] inline void unsupported_spec(std::string_view spec) {
     throw std::runtime_error("fmt shim: unsupported format spec '" +
                              std::string(spec) + "'");

@@ -2,7 +2,7 @@
 //
 // Counterpart of the reference's OpenMP-parallel parse_arff_file
 // (src/plssvm/parameter.cpp:180-363), emitting CSR directly.  Exposed as a
-// C API consumed through ctypes (plssvm_sparse_fp22_tpu/io/native.py); the
+// C API consumed through ctypes (plssvm_sparse_fp22/io/native.py); the
 // pure-Python parser (io/arff.py) remains the fallback and the semantics
 // oracle — error messages here must match it byte-for-byte.
 //

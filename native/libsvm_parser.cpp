@@ -1,12 +1,12 @@
 // Native LIBSVM parser: mmap ingest + multi-threaded sparse-line parsing.
 //
-// TPU-native framework's counterpart of the reference's native data-loading
+// The JAX framework's counterpart of the reference's native data-loading
 // path: mmap-based file_reader (src/plssvm/detail/file_reader.cpp:72-100)
 // plus the OpenMP-parallel parse_libsvm_content
 // (src/plssvm/parameter.cpp:41-116), re-designed to emit CSR directly
 // (indptr/indices/data) instead of densified rows, with std::thread
 // parallelism.  Exposed as a C API consumed through ctypes
-// (plssvm_sparse_fp22_tpu/io/native.py); the pure-Python parser remains the
+// (plssvm_sparse_fp22/io/native.py); the pure-Python parser remains the
 // fallback and the semantics oracle.
 //
 // Semantics parity with the reference parser:

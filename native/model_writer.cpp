@@ -1,11 +1,11 @@
 // Native LIBSVM model writer: multi-threaded formatting + sequential write.
 //
-// TPU-native framework's counterpart of the reference's OpenMP-parallel
+// The JAX framework's counterpart of the reference's OpenMP-parallel
 // write_model (src/plssvm/csvm.cpp:60-204): each thread formats its slice of
 // support-vector rows into a private buffer (the analog of the reference's
 // thread-local fmt::memory_buffer, csvm.cpp:157-195), then the buffers are
 // written to disk in order.  Consumed through ctypes
-// (plssvm_sparse_fp22_tpu/io/native.py); the pure-Python writer remains the
+// (plssvm_sparse_fp22/io/native.py); the pure-Python writer remains the
 // fallback and the byte-format oracle.
 //
 // Number formatting parity (csvm.cpp:144-154):

@@ -1,17 +1,17 @@
 """Validate the DESIGN.md communication model against compiled HLO.
 
 For every multi-chip mode, lower + compile the sharded learn on the
-8-virtual-device CPU mesh (the same XLA SPMD partitioner/collectives real
-TPUs run) and extract the DATA-CARRYING collective payloads (ring
+8-virtual-device CPU mesh (the same XLA SPMD partitioner and collectives
+a GPU mesh runs) and extract the DATA-CARRYING collective payloads (ring
 ``collective-permute`` / ``all-reduce`` / ``all-gather`` instruction
 shapes) from the optimized HLO.  Per-iteration bytes are assembled from
 the extracted payloads plus the known loop structure (ring modes execute
 ``p`` scan hops per matvec; psum/all_gather modes one collective — the
 bidirectional-ring reduction factor ``2·(p−1)/p`` applies to reductions,
 ``(p−1)/p`` to gathers/permute hops) and compared against the predicted
-formulas in DESIGN.md "Communication model".  Done-criterion (VERDICT r4
-#4): agreement within ~2x, so the unverifiable ≥80% v5p weak-scaling
-target rests on a validated model.
+formulas in DESIGN.md "Communication model".  Done-criterion: agreement
+within ~2x.  The model has been checked against compiled HLO only; the
+exposed collective time on four NVLink GPUs is ROADMAP A6.
 
 Writes one JSON line; run: ``python scripts/comms_check.py``.
 Scalar (f32[]) psums — CG dot products — are counted but excluded from the
@@ -83,14 +83,14 @@ def main():
     import jax.numpy as jnp
     import scipy.sparse as sp
 
-    from plssvm_sparse_fp22_tpu.ops.sparse import HybridSparse, TiledHybrid
-    from plssvm_sparse_fp22_tpu.parallel.mesh import make_mesh
-    from plssvm_sparse_fp22_tpu.parallel.sharded import (
+    from plssvm_sparse_fp22.ops.sparse import HybridSparse, TiledHybrid
+    from plssvm_sparse_fp22.parallel.mesh import make_mesh
+    from plssvm_sparse_fp22.parallel.sharded import (
         make_feature_sharded_learn, make_sharded_learn,
         make_sharded_sparse_linear_learn, make_sharded_sparse_panel_learn,
         make_sharded_sparse_streaming_learn, shard_sparse_system,
         shard_sparse_tiled_system, shard_system, shard_system_feature)
-    from plssvm_sparse_fp22_tpu.types import KernelType
+    from plssvm_sparse_fp22.types import KernelType
 
     p = 8
     mesh = make_mesh(p)
@@ -149,8 +149,7 @@ def main():
 
     vec = lower(
         "sharded_implicit_ring",
-        make_sharded_learn(mesh, KernelType.rbf, 3, "implicit",
-                           use_pallas=False),
+        make_sharded_learn(mesh, KernelType.rbf, 3, "implicit"),
         Xs, x_last, bs, ms, *scal, *eps_imax,
         predicted={"per_iter_bytes_formula": "4*(p-1)/p*D*(f+8)",
                    "value": round(4 * (p - 1) / p * D * (f + 8))},
@@ -205,7 +204,7 @@ def main():
         "sharded_sparse_panel_ring",
         make_sharded_sparse_panel_learn(
             mesh, KernelType.rbf, 3, ntiles=th.tell.ntiles, Lt=th.tell.Lt,
-            panel_rows=rows_loc, use_pallas=False),
+            panel_rows=rows_loc),
         tv, tc, hv, hr, x_last, bs2, ms2, *scal, *eps_imax,
         predicted={"per_iter_bytes_formula": "8*(p-1)/p*D*(S+1)",
                    "value": round(8 * (p - 1) / p * D * (S + 1))},

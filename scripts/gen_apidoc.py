@@ -20,28 +20,28 @@ OUT = os.path.join(ROOT, "docs", "api")
 
 #: the documented public surface (the analog of the doxygen input list)
 MODULES = [
-    "plssvm_sparse_fp22_tpu",
-    "plssvm_sparse_fp22_tpu.params",
-    "plssvm_sparse_fp22_tpu.types",
-    "plssvm_sparse_fp22_tpu.exceptions",
-    "plssvm_sparse_fp22_tpu.models.base",
-    "plssvm_sparse_fp22_tpu.models.factory",
-    "plssvm_sparse_fp22_tpu.solver.cg",
-    "plssvm_sparse_fp22_tpu.solver.checkpoint",
-    "plssvm_sparse_fp22_tpu.ops.matvec",
-    "plssvm_sparse_fp22_tpu.ops.kernel_functions",
-    "plssvm_sparse_fp22_tpu.ops.pallas_matvec",
-    "plssvm_sparse_fp22_tpu.ops.sparse",
-    "plssvm_sparse_fp22_tpu.parallel.mesh",
-    "plssvm_sparse_fp22_tpu.parallel.sharded",
-    "plssvm_sparse_fp22_tpu.parallel.distributed",
-    "plssvm_sparse_fp22_tpu.io.libsvm",
-    "plssvm_sparse_fp22_tpu.io.arff",
-    "plssvm_sparse_fp22_tpu.io.model",
-    "plssvm_sparse_fp22_tpu.cli.train",
-    "plssvm_sparse_fp22_tpu.cli.predict",
-    "plssvm_sparse_fp22_tpu.utils.oracle",
-    "plssvm_sparse_fp22_tpu.utils.timing",
+    "plssvm_sparse_fp22",
+    "plssvm_sparse_fp22.params",
+    "plssvm_sparse_fp22.types",
+    "plssvm_sparse_fp22.device",
+    "plssvm_sparse_fp22.exceptions",
+    "plssvm_sparse_fp22.models.base",
+    "plssvm_sparse_fp22.models.factory",
+    "plssvm_sparse_fp22.solver.cg",
+    "plssvm_sparse_fp22.solver.checkpoint",
+    "plssvm_sparse_fp22.ops.matvec",
+    "plssvm_sparse_fp22.ops.kernel_functions",
+    "plssvm_sparse_fp22.ops.sparse",
+    "plssvm_sparse_fp22.parallel.mesh",
+    "plssvm_sparse_fp22.parallel.sharded",
+    "plssvm_sparse_fp22.parallel.distributed",
+    "plssvm_sparse_fp22.io.libsvm",
+    "plssvm_sparse_fp22.io.arff",
+    "plssvm_sparse_fp22.io.model",
+    "plssvm_sparse_fp22.cli.train",
+    "plssvm_sparse_fp22.cli.predict",
+    "plssvm_sparse_fp22.utils.oracle",
+    "plssvm_sparse_fp22.utils.timing",
 ]
 
 
@@ -69,7 +69,7 @@ def _public_members(mod):
         if obj is None or inspect.ismodule(obj):
             continue
         if getattr(obj, "__module__", mod.__name__) != mod.__name__ and \
-                mod.__name__ != "plssvm_sparse_fp22_tpu":
+                mod.__name__ != "plssvm_sparse_fp22":
             continue  # re-exports documented at their home module
         out.append((n, obj))
     return out

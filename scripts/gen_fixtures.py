@@ -19,11 +19,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from plssvm_sparse_fp22_tpu.io.libsvm import write_libsvm_file
-from plssvm_sparse_fp22_tpu.io.arff import write_arff_file
-from plssvm_sparse_fp22_tpu.io.model import write_model_file
-from plssvm_sparse_fp22_tpu.types import KernelType
-from plssvm_sparse_fp22_tpu.utils import oracle
+from plssvm_sparse_fp22.io.libsvm import write_libsvm_file
+from plssvm_sparse_fp22.io.arff import write_arff_file
+from plssvm_sparse_fp22.io.model import write_model_file
+from plssvm_sparse_fp22.types import KernelType
+from plssvm_sparse_fp22.utils import oracle
 
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "tests", "data")

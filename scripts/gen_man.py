@@ -2,9 +2,8 @@
 
 The reference installs real ``plssvm-train.1`` / ``plssvm-predict.1`` man
 pages (``/root/reference/docs/plssvm-train.1.in``, configured by
-``docs/CMakeLists.txt``); this converter closes the last in-kind docs gap
-(VERDICT r4 missing #4) without external tooling (no pandoc in the
-environment): it handles exactly the markdown subset the ``*.1.md``
+``docs/CMakeLists.txt``); this converter builds them without external
+tooling (no pandoc): it handles exactly the markdown subset the ``*.1.md``
 sources use — ``#``/``##`` headers, ``-``-bullet lists, indented code
 blocks, inline ``code``/backslash escapes, paragraphs.
 
@@ -37,7 +36,7 @@ def _escape(text: str) -> str:
 def md_to_roff(md: str, name: str, section: int, version: str) -> str:
     date = datetime.date.today().isoformat()
     out = [f'.TH "{name.upper()}" "{section}" "{date}" '
-           f'"plssvm-sparse-fp22-tpu {version}" "User Commands"']
+           f'"plssvm-sparse-fp22 {version}" "User Commands"']
     lines = md.splitlines()
     i = 0
     in_code = False
@@ -107,7 +106,7 @@ def md_to_roff(md: str, name: str, section: int, version: str) -> str:
 
 def main():
     sys.path.insert(0, os.path.dirname(DOCS))
-    from plssvm_sparse_fp22_tpu.version import VERSION as __version__
+    from plssvm_sparse_fp22.version import VERSION as __version__
 
     wrote = []
     for fname in sorted(os.listdir(DOCS)):

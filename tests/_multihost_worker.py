@@ -6,7 +6,7 @@ Each of the two processes owns 4 virtual CPU devices; together they form one
 single-process tests use — the shard_map code cannot tell ICI from DCN, which
 is the point (SURVEY.md §2.4 item 4).
 
-Scenarios (VERDICT r4 #5 — the DCN envelope beyond the reference's
+Scenarios (the multi-host envelope beyond the reference's
 single-node CI, ``.jenkins/Jenkinsfile-Tests-Multi-GPU:130-133``):
 
 - ``dense``     — ring-implicit rbf learn, per-process row feeding.
@@ -43,11 +43,11 @@ jax.config.update("jax_enable_x64", True)
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from plssvm_sparse_fp22_tpu.parallel.distributed import (  # noqa: E402
+from plssvm_sparse_fp22.parallel.distributed import (  # noqa: E402
     initialize_distributed, make_global_row_sharded)
-from plssvm_sparse_fp22_tpu.parallel.mesh import make_mesh  # noqa: E402
-from plssvm_sparse_fp22_tpu.types import KernelType  # noqa: E402
-from plssvm_sparse_fp22_tpu.utils import oracle  # noqa: E402
+from plssvm_sparse_fp22.parallel.mesh import make_mesh  # noqa: E402
+from plssvm_sparse_fp22.types import KernelType  # noqa: E402
+from plssvm_sparse_fp22.utils import oracle  # noqa: E402
 
 EPS, IMAX, COST = 1e-10, 200, 2.0
 GAMMA, COEF0, DEGREE = 0.1, 1.0, 3
@@ -95,7 +95,7 @@ def _check_sharded_x(x_sh, x_ref_pad):
 
 
 def scenario_dense(mesh):
-    from plssvm_sparse_fp22_tpu.parallel.sharded import make_sharded_learn
+    from plssvm_sparse_fp22.parallel.sharded import make_sharded_learn
 
     X, y, X_pad, b_pad, mask, dept, D = _dense_problem()
     Xs, bs, ms = _feed(mesh, X_pad, b_pad, mask)
@@ -137,8 +137,8 @@ def _sparse_problem():
 def scenario_sparse(mesh):
     """Sparse gather-ring learn across processes: each chip holds only its
     ELL+COO shard; shards walk the ring over ICI AND the DCN cut."""
-    from plssvm_sparse_fp22_tpu.ops.sparse import HybridSparse
-    from plssvm_sparse_fp22_tpu.parallel.sharded import (
+    from plssvm_sparse_fp22.ops.sparse import HybridSparse
+    from plssvm_sparse_fp22.parallel.sharded import (
         make_sharded_sparse_streaming_learn)
 
     csr, y, dept, D = _sparse_problem()
@@ -193,7 +193,7 @@ def scenario_sparse(mesh):
 def scenario_predict(mesh):
     """Distributed predict: SV axis sharded across both processes' devices,
     decision values psummed and replicated to every process."""
-    from plssvm_sparse_fp22_tpu.parallel.sharded import make_sharded_predict
+    from plssvm_sparse_fp22.parallel.sharded import make_sharded_predict
 
     X, y, X_pad, b_pad, mask, dept, D = _dense_problem()
     alpha_ref, bias_ref, _ = oracle.solve_lssvm(
@@ -226,10 +226,10 @@ def scenario_ckpt(mesh, phase):
     converges."""
     from jax.experimental import multihost_utils
 
-    from plssvm_sparse_fp22_tpu.parallel.sharded import (
+    from plssvm_sparse_fp22.parallel.sharded import (
         make_sharded_learn_fns)
-    from plssvm_sparse_fp22_tpu.solver.cg import CGState
-    from plssvm_sparse_fp22_tpu.solver.checkpoint import (
+    from plssvm_sparse_fp22.solver.cg import CGState
+    from plssvm_sparse_fp22.solver.checkpoint import (
         load_cg_checkpoint, save_cg_checkpoint)
 
     X, y, X_pad, b_pad, mask, dept, D = _dense_problem()

@@ -1,19 +1,18 @@
 """Adaptive two-tier CG (``solver/cg.cg_solve_adaptive``).
 
-On TPU the fast tier is the 1-pass bf16 MXU product and the accurate tier
-the 3-pass split-bf16 (docs/PERF.md precision frontier); on the CPU test
-platform both tiers are numerically identical, so the *escalation
-machinery* is exercised with a deliberately corrupted fast matvec whose
-error floor sits above the requested tolerance — the same failure mode a
-too-coarse MXU tier produces on hardware.  The on-hardware twin lives in
-``scripts/tpu_validate.py``.
+On a GPU the fast tier is a reduced-precision tensor-core product (TF32 or
+bf16, docs/PERF.md "Dot precision on the H100"); on the CPU test platform
+both tiers are numerically identical, so the *escalation machinery* is
+exercised with a deliberately corrupted fast matvec whose error floor sits
+above the requested tolerance — the same failure mode a too-coarse tier
+produces on the card.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from plssvm_sparse_fp22_tpu.solver.cg import (CGState, cg_init,
+from plssvm_sparse_fp22.solver.cg import (CGState, cg_init,
                                               cg_run_stagnation,
                                               cg_solve, cg_solve_adaptive)
 
@@ -140,28 +139,30 @@ def test_adaptive_preconditioned():
 def test_product_surface_adaptive(monkeypatch):
     """PLSSVM_MATMUL_PRECISION=adaptive through make_csvm: the learn takes
     the two-tier path (fast_iterations reported), converges to the
-    accurate-tier tolerance, and trains to full accuracy.  The fast tier
-    is real bf16 even in interpret mode (bf16cast operands), so escalation
-    may or may not fire depending on where its error floor lands — either
-    way the verified contract must hold."""
+    accurate-tier tolerance, and trains to full accuracy.  A one-byte K
+    budget forces the implicit mode the plan applies to.  Escalation may or
+    may not fire depending on where the fast tier's error floor lands —
+    either way the verified contract must hold."""
     import scipy.sparse as sp
 
-    from plssvm_sparse_fp22_tpu.io.libsvm import ParsedData
-    from plssvm_sparse_fp22_tpu.models import make_csvm
-    from plssvm_sparse_fp22_tpu.params import Parameter
-    from plssvm_sparse_fp22_tpu.types import BackendType, KernelType
+    from plssvm_sparse_fp22.io.libsvm import ParsedData
+    from plssvm_sparse_fp22.models import make_csvm
+    from plssvm_sparse_fp22.params import Parameter
+    from plssvm_sparse_fp22.types import BackendType, KernelType
 
     monkeypatch.setenv("PLSSVM_MATMUL_PRECISION", "adaptive")
+    monkeypatch.setenv("PLSSVM_K_CACHE_BYTES", "1")
     X, y = make_blobs(96, 16, dtype=np.float32)
     params = Parameter(kernel=KernelType.rbf, gamma=1.0 / 16, cost=1.0,
                        epsilon=1e-6, print_info=False, dtype=np.float32,
-                       backend=BackendType.pallas, devices=1)
+                       backend=BackendType.automatic, devices=1)
     params.data = ParsedData(csr=sp.csr_matrix(X), values=y,
                              _dense=X.astype(np.float64))
     params.values = y
     svm = make_csvm(params)
     svm.learn()
     info = svm.last_cg_info
+    assert info["mode"] == "implicit"
     assert "fast_iterations" in info and info["fast_iterations"] >= 1
     assert info["delta"] <= 1e-12 * info["delta0"]  # accurate-tier residual
     assert svm.accuracy() == pytest.approx(1.0)
@@ -173,10 +174,10 @@ def test_sharded_adaptive_product_surface(monkeypatch):
     fast-iteration count surfaces in last_cg_info."""
     import scipy.sparse as sp
 
-    from plssvm_sparse_fp22_tpu.io.libsvm import ParsedData
-    from plssvm_sparse_fp22_tpu.models import make_csvm
-    from plssvm_sparse_fp22_tpu.params import Parameter
-    from plssvm_sparse_fp22_tpu.types import KernelType
+    from plssvm_sparse_fp22.io.libsvm import ParsedData
+    from plssvm_sparse_fp22.models import make_csvm
+    from plssvm_sparse_fp22.params import Parameter
+    from plssvm_sparse_fp22.types import KernelType
 
     monkeypatch.setenv("PLSSVM_MATMUL_PRECISION", "adaptive")
     X, y = make_blobs(1100, 16, dtype=np.float32)
@@ -193,43 +194,18 @@ def test_sharded_adaptive_product_surface(monkeypatch):
     assert svm.accuracy() > 0.97
 
 
-def test_fast_tier_bf16cast_operands():
-    """The fast tier's pre-cast bf16 operands (half the operand traffic of
-    a DEFAULT-precision f32 dot, same MXU math): interpret-mode sym matvec
-    stays within the bf16 error budget of the exact oracle."""
-    import jax.numpy as jnp2
-    from jax import lax
-
-    from plssvm_sparse_fp22_tpu.ops.kernel_functions import gram_matrix
-    from plssvm_sparse_fp22_tpu.ops.pallas_matvec import (_resolve_decomp,
-                                                          make_sym_matvec)
-    from plssvm_sparse_fp22_tpu.types import KernelType
-
-    assert _resolve_decomp(lax.Precision.DEFAULT, jnp2.float32) == \
-        ("bf16cast", lax.Precision.DEFAULT)
-    rng = np.random.default_rng(23)
-    X = jnp2.asarray(rng.normal(size=(64, 48)).astype(np.float32))
-    v = jnp2.asarray(rng.normal(size=64).astype(np.float32))
-    mv = make_sym_matvec(KernelType.rbf, X, gamma=0.02, interpret=True,
-                         precision=lax.Precision.DEFAULT)
-    K = np.asarray(gram_matrix(KernelType.rbf, X, degree=3, gamma=0.02,
-                               coef0=0.0), np.float64)
-    want = K @ np.asarray(v, np.float64)
-    got = np.asarray(mv(v), np.float64)
-    err = np.max(np.abs(got - want)) / (np.max(np.abs(want)) + 1e-30)
-    assert err < 2e-2  # bf16 budget — the escalation tier's job to cover
-
-
-def test_resolve_mxu_plan_contract(monkeypatch):
-    from plssvm_sparse_fp22_tpu.ops.matvec import resolve_mxu_plan
+def test_resolve_precision_plan_contract(monkeypatch):
+    from plssvm_sparse_fp22.ops.matvec import resolve_precision_plan
 
     monkeypatch.setenv("PLSSVM_MATMUL_PRECISION", "adaptive")
-    assert resolve_mxu_plan("implicit", np.float32) == ("default", "high")
-    assert resolve_mxu_plan("linear", np.float32) == ("default", "high")
-    assert resolve_mxu_plan("cached", np.float32) is None  # HBM-bound
-    assert resolve_mxu_plan("implicit", np.float64) is None  # exact f64
+    # the accurate tier is exact f32: on the H100 "high" is TF32 like "default"
+    assert resolve_precision_plan("implicit", np.float32) == ("default", "highest")
+    assert resolve_precision_plan("linear", np.float32) == ("default", "highest")
+    assert resolve_precision_plan("cached", np.float32) is None  # HBM-bound
+    assert resolve_precision_plan("implicit", np.float64) is None  # exact f64
     monkeypatch.setenv("PLSSVM_MATMUL_PRECISION", "high")
-    assert resolve_mxu_plan("implicit", np.float32) is None  # pinned tier
+    assert resolve_precision_plan("implicit", np.float32) is None  # pinned tier
     monkeypatch.delenv("PLSSVM_MATMUL_PRECISION")
-    # default: adaptive only on TPU — the CPU test platform resolves fixed
-    assert resolve_mxu_plan("implicit", np.float32) is None
+    # default: fixed tier on every platform until the GPU tiers are
+    # measured against the escalation fixture
+    assert resolve_precision_plan("implicit", np.float32) is None

@@ -12,8 +12,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from plssvm_sparse_fp22_tpu.utils import assertions
-from plssvm_sparse_fp22_tpu.utils.assertions import (
+from plssvm_sparse_fp22.utils import assertions
+from plssvm_sparse_fp22.utils.assertions import (
     PLSSVMAssertionError, plssvm_assert)
 
 
@@ -55,7 +55,7 @@ class TestPlssvmAssert:
         for env_val, expect in (("1", "True"), ("0", "False")):
             out = subprocess.run(
                 [sys.executable, "-c",
-                 "from plssvm_sparse_fp22_tpu.utils import assertions; "
+                 "from plssvm_sparse_fp22.utils import assertions; "
                  "print(assertions.ASSERTS_ENABLED)"],
                 env={**os.environ, "PLSSVM_ENABLE_ASSERTS": env_val,
                      "JAX_PLATFORMS": "cpu"},
@@ -70,7 +70,7 @@ class TestWiredInvariants:
 
     def test_cg_shape_invariant(self, monkeypatch):
         monkeypatch.setattr(assertions, "ASSERTS_ENABLED", True)
-        from plssvm_sparse_fp22_tpu.solver.cg import cg_solve
+        from plssvm_sparse_fp22.solver.cg import cg_solve
 
         b = jnp.ones(8, jnp.float32)
         mask = jnp.ones(4, jnp.float32)  # wrong shape
@@ -79,8 +79,8 @@ class TestWiredInvariants:
 
     def test_operator_shape_invariant(self, monkeypatch):
         monkeypatch.setattr(assertions, "ASSERTS_ENABLED", True)
-        from plssvm_sparse_fp22_tpu.ops.matvec import build_operator
-        from plssvm_sparse_fp22_tpu.types import KernelType
+        from plssvm_sparse_fp22.ops.matvec import build_operator
+        from plssvm_sparse_fp22.types import KernelType
 
         X = jnp.ones((8, 4), jnp.float32)
         with pytest.raises(PLSSVMAssertionError, match="padded system"):
@@ -94,7 +94,7 @@ class TestWiredInvariants:
         monkeypatch.setattr(assertions, "ASSERTS_ENABLED", True)
         import scipy.sparse as sp
 
-        from plssvm_sparse_fp22_tpu.ops.sparse import HybridSparse
+        from plssvm_sparse_fp22.ops.sparse import HybridSparse
 
         rng = np.random.default_rng(3)
         csr = sp.random(40, 30, density=0.2, format="csr", random_state=rng,

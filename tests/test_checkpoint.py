@@ -4,11 +4,11 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-import plssvm_sparse_fp22_tpu as pt
-from plssvm_sparse_fp22_tpu.exceptions import PLSSVMError
-from plssvm_sparse_fp22_tpu.io.libsvm import ParsedData
-from plssvm_sparse_fp22_tpu.params import Parameter
-from plssvm_sparse_fp22_tpu.types import KernelType
+import plssvm_sparse_fp22 as pt
+from plssvm_sparse_fp22.exceptions import PLSSVMError
+from plssvm_sparse_fp22.io.libsvm import ParsedData
+from plssvm_sparse_fp22.params import Parameter
+from plssvm_sparse_fp22.types import KernelType
 
 from utils import make_blobs
 

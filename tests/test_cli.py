@@ -7,10 +7,10 @@ plus a full train/predict pipeline over the reference fixtures.
 import numpy as np
 import pytest
 
-from plssvm_sparse_fp22_tpu.cli.predict import main as predict_main
-from plssvm_sparse_fp22_tpu.cli.train import main as train_main
-from plssvm_sparse_fp22_tpu.io.model import parse_model_file
-from plssvm_sparse_fp22_tpu.types import KernelType
+from plssvm_sparse_fp22.cli.predict import main as predict_main
+from plssvm_sparse_fp22.cli.train import main as train_main
+from plssvm_sparse_fp22.io.model import parse_model_file
+from plssvm_sparse_fp22.types import KernelType
 
 
 def test_train_help(capsys):

@@ -5,9 +5,9 @@ paired train/test output, minmax scaling)."""
 import numpy as np
 import pytest
 
-from plssvm_sparse_fp22_tpu.cli.generate_data import generate, main, minmax_scale
-from plssvm_sparse_fp22_tpu.io.arff import parse_arff_file
-from plssvm_sparse_fp22_tpu.io.libsvm import parse_libsvm_file
+from plssvm_sparse_fp22.cli.generate_data import generate, main, minmax_scale
+from plssvm_sparse_fp22.io.arff import parse_arff_file
+from plssvm_sparse_fp22.io.libsvm import parse_libsvm_file
 
 
 @pytest.mark.parametrize(
@@ -77,3 +77,16 @@ def test_plot_accepted_and_ignored(tmp_path, capsys):
     assert main(["--output", str(out), "--samples", "8", "--features", "2",
                  "--plot"]) == 0
     assert "ignored" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("problem,std", [("blobs", 1.0), ("blobs_merged", 4.0)])
+def test_blobs_numpy_generator(problem, std):
+    """The blob problems need only numpy: two balanced clusters, same data
+    for the same seed, spread set by the problem's cluster std."""
+    X, y = generate(problem, 400, 8, seed=3)
+    X2, y2 = generate(problem, 400, 8, seed=3)
+    np.testing.assert_array_equal(X, X2)
+    np.testing.assert_array_equal(y, y2)
+    assert abs(int(np.sum(y > 0)) - 200) == 0
+    within = X[y > 0] - X[y > 0].mean(axis=0)
+    assert abs(float(within.std()) - std) < 0.15 * std

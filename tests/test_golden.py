@@ -12,11 +12,11 @@ import re
 import numpy as np
 import pytest
 
-from plssvm_sparse_fp22_tpu.io.libsvm import parse_libsvm_file
-from plssvm_sparse_fp22_tpu.io.model import parse_model_file
-from plssvm_sparse_fp22_tpu.models import make_csvm
-from plssvm_sparse_fp22_tpu.params import Parameter
-from plssvm_sparse_fp22_tpu.types import KernelType
+from plssvm_sparse_fp22.io.libsvm import parse_libsvm_file
+from plssvm_sparse_fp22.io.model import parse_model_file
+from plssvm_sparse_fp22.models import make_csvm
+from plssvm_sparse_fp22.params import Parameter
+from plssvm_sparse_fp22.types import KernelType
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 HYPER = {"degree": 3, "gamma": 0.125, "coef0": 1.0}
@@ -111,7 +111,7 @@ def test_model_header_format():
 def test_accuracy_without_labels_is_loud():
     """accuracy(points) with no labels raises PLSSVMError, not a raw
     TypeError (error-contract parity, csvm.cpp:270-318)."""
-    from plssvm_sparse_fp22_tpu.exceptions import PLSSVMError
+    from plssvm_sparse_fp22.exceptions import PLSSVMError
 
     svm = _train_fixture(KernelType.linear)
     with pytest.raises(PLSSVMError, match="No labels given"):
@@ -124,7 +124,7 @@ def test_reference_model_header_roundtrip_byte_exact(reference_data_dir):
     rho line (fmt::format(\"{}\") shortest-roundtrip parity,
     csvm.cpp:115-125; closes the rho-strip gap of
     test_learn_matches_golden_model)."""
-    from plssvm_sparse_fp22_tpu.io.model import write_model_file
+    from plssvm_sparse_fp22.io.model import write_model_file
 
     # the 5x4 fixtures carry shortest-roundtrip rho (what fmt::format("{}")
     # emits); the 500x200 fixtures predate fmt's shortest formatting (their

@@ -18,8 +18,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from plssvm_sparse_fp22_tpu.cli.predict import main as predict_main
-from plssvm_sparse_fp22_tpu.cli.train import main as train_main
+from plssvm_sparse_fp22.cli.predict import main as predict_main
+from plssvm_sparse_fp22.cli.train import main as train_main
 
 REFERENCE = os.environ.get("PLSSVM_REFERENCE", "/root/reference")
 BUILD_DIR = os.environ.get("PLSSVM_REFERENCE_BUILD", "/tmp/refbuild")
@@ -135,11 +135,11 @@ def test_solver_numeric_parity_with_reference(reference_bins, fixtures,
     null-space component is reduction-noise, the decision function is the
     stable quantity (the same reason the reference's tests replay blocked
     summation order in a sequential oracle, compare.cpp:34-48)."""
-    from plssvm_sparse_fp22_tpu.io.model import parse_model_file
-    from plssvm_sparse_fp22_tpu.io.libsvm import parse_libsvm_file
-    from plssvm_sparse_fp22_tpu.models import make_csvm
-    from plssvm_sparse_fp22_tpu.params import Parameter
-    from plssvm_sparse_fp22_tpu.types import KernelType
+    from plssvm_sparse_fp22.io.model import parse_model_file
+    from plssvm_sparse_fp22.io.libsvm import parse_libsvm_file
+    from plssvm_sparse_fp22.models import make_csvm
+    from plssvm_sparse_fp22.params import Parameter
+    from plssvm_sparse_fp22.types import KernelType
 
     ref_train, _ = reference_bins
     train_file, test_file = fixtures

@@ -8,16 +8,16 @@ inputs, checked against the reference's own data files where available.
 import numpy as np
 import pytest
 
-from plssvm_sparse_fp22_tpu.exceptions import (
+from plssvm_sparse_fp22.exceptions import (
     FileNotFoundError_,
     InvalidFileFormatError,
 )
-from plssvm_sparse_fp22_tpu.io.arff import parse_arff_file
-from plssvm_sparse_fp22_tpu.io.fmtlib import fmt_scientific, fmt_shortest
-from plssvm_sparse_fp22_tpu.io.libsvm import parse_libsvm_file, write_libsvm_file
-from plssvm_sparse_fp22_tpu.io.model import parse_model_file, write_model_file
-from plssvm_sparse_fp22_tpu.params import Parameter
-from plssvm_sparse_fp22_tpu.types import KernelType
+from plssvm_sparse_fp22.io.arff import parse_arff_file
+from plssvm_sparse_fp22.io.fmtlib import fmt_scientific, fmt_shortest
+from plssvm_sparse_fp22.io.libsvm import parse_libsvm_file, write_libsvm_file
+from plssvm_sparse_fp22.io.model import parse_model_file, write_model_file
+from plssvm_sparse_fp22.params import Parameter
+from plssvm_sparse_fp22.types import KernelType
 
 # the 5x4 fixture values (tests/data/libsvm/5x4.libsvm)
 EXPECTED_5X4 = np.array(

@@ -13,12 +13,12 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-import plssvm_sparse_fp22_tpu as pt
-from plssvm_sparse_fp22_tpu.exceptions import PLSSVMError
-from plssvm_sparse_fp22_tpu.io.libsvm import ParsedData, parse_libsvm_file
-from plssvm_sparse_fp22_tpu.io.model import parse_model_file
-from plssvm_sparse_fp22_tpu.params import Parameter
-from plssvm_sparse_fp22_tpu.types import KernelType
+import plssvm_sparse_fp22 as pt
+from plssvm_sparse_fp22.exceptions import PLSSVMError
+from plssvm_sparse_fp22.io.libsvm import ParsedData, parse_libsvm_file
+from plssvm_sparse_fp22.io.model import parse_model_file
+from plssvm_sparse_fp22.params import Parameter
+from plssvm_sparse_fp22.types import KernelType
 
 from utils import make_blobs
 

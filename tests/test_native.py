@@ -7,12 +7,12 @@ the shared library.
 import numpy as np
 import pytest
 
-from plssvm_sparse_fp22_tpu.exceptions import (
+from plssvm_sparse_fp22.exceptions import (
     FileNotFoundError_,
     InvalidFileFormatError,
 )
-from plssvm_sparse_fp22_tpu.io.libsvm import parse_libsvm_content, write_libsvm_file
-from plssvm_sparse_fp22_tpu.io.native import get_native_lib, parse_libsvm_native
+from plssvm_sparse_fp22.io.libsvm import parse_libsvm_content, write_libsvm_file
+from plssvm_sparse_fp22.io.native import get_native_lib, parse_libsvm_native
 
 
 pytestmark = pytest.mark.skipif(
@@ -21,7 +21,7 @@ pytestmark = pytest.mark.skipif(
 
 
 def _python_parse(path):
-    from plssvm_sparse_fp22_tpu.io.file_reader import read_lines
+    from plssvm_sparse_fp22.io.file_reader import read_lines
 
     return parse_libsvm_content(read_lines(path, "#"))
 
@@ -86,8 +86,8 @@ class TestNativeModelWriter:
 
     @staticmethod
     def _write_both(tmp_path, monkeypatch, data, labels, alphas, kernel=None, **kw):
-        from plssvm_sparse_fp22_tpu.io.model import write_model_file
-        from plssvm_sparse_fp22_tpu.types import KernelType
+        from plssvm_sparse_fp22.io.model import write_model_file
+        from plssvm_sparse_fp22.types import KernelType
 
         kernel = kernel or KernelType.rbf
         native_path = str(tmp_path / "native.model")
@@ -137,8 +137,8 @@ class TestNativeModelWriter:
         assert a == b
 
     def test_roundtrip_through_parser(self, tmp_path):
-        from plssvm_sparse_fp22_tpu.io.model import parse_model_file, write_model_file
-        from plssvm_sparse_fp22_tpu.types import KernelType
+        from plssvm_sparse_fp22.io.model import parse_model_file, write_model_file
+        from plssvm_sparse_fp22.types import KernelType
 
         rng = np.random.default_rng(17)
         X = rng.normal(size=(30, 8))
@@ -162,10 +162,10 @@ class TestNativeArffParser:
 
     @staticmethod
     def _python_parse(path):
-        from plssvm_sparse_fp22_tpu.io import arff as arff_mod
+        from plssvm_sparse_fp22.io import arff as arff_mod
 
         # bypass the native fast path inside parse_arff_file
-        import plssvm_sparse_fp22_tpu.io.native as native_mod
+        import plssvm_sparse_fp22.io.native as native_mod
         real = native_mod.parse_arff_native
         native_mod.parse_arff_native = lambda *a, **k: None
         try:
@@ -175,7 +175,7 @@ class TestNativeArffParser:
 
     @pytest.mark.parametrize("fixture", ["5x4.arff", "5x4.arff.no_label"])
     def test_parity_with_python_parser(self, reference_data_dir, fixture):
-        from plssvm_sparse_fp22_tpu.io.native import parse_arff_native
+        from plssvm_sparse_fp22.io.native import parse_arff_native
 
         path = f"{reference_data_dir}/arff/{fixture}"
         native_csr, native_labels = parse_arff_native(path)
@@ -188,7 +188,7 @@ class TestNativeArffParser:
 
     def test_sparse_rows_parity(self, tmp_path):
         """Sparse {idx value, ...} rows, mixed with dense rows."""
-        from plssvm_sparse_fp22_tpu.io.native import parse_arff_native
+        from plssvm_sparse_fp22.io.native import parse_arff_native
 
         p = tmp_path / "mixed.arff"
         p.write_text(
@@ -239,7 +239,7 @@ class TestNativeArffParser:
         """Both parsers reject with the same message."""
         import re
 
-        from plssvm_sparse_fp22_tpu.io.native import parse_arff_native
+        from plssvm_sparse_fp22.io.native import parse_arff_native
 
         p = tmp_path / "bad.arff"
         p.write_text(content)
@@ -256,7 +256,7 @@ class TestNativeArffParser:
             "@ATTRIBUTE a NUMERIC\n@ATTRIBUTE b NUMERIC\n"
             "@ATTRIBUTE c class NUMERIC\n@DATA\n{0 1.0, 0 3.5, 2 1}\n"
         )
-        from plssvm_sparse_fp22_tpu.io.native import parse_arff_native
+        from plssvm_sparse_fp22.io.native import parse_arff_native
 
         csr, labels = parse_arff_native(str(p))
         py = self._python_parse(str(p))
@@ -265,8 +265,8 @@ class TestNativeArffParser:
         np.testing.assert_array_equal(labels, py.values)
 
     def test_random_roundtrip_parity(self, tmp_path):
-        from plssvm_sparse_fp22_tpu.io.arff import write_arff_file
-        from plssvm_sparse_fp22_tpu.io.native import parse_arff_native
+        from plssvm_sparse_fp22.io.arff import write_arff_file
+        from plssvm_sparse_fp22.io.native import parse_arff_native
 
         rng = np.random.default_rng(5)
         X = np.where(rng.random((80, 17)) < 0.4, rng.normal(size=(80, 17)), 0.0)

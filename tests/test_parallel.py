@@ -11,12 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from plssvm_sparse_fp22_tpu.ops.matvec import build_operator
-from plssvm_sparse_fp22_tpu.parallel.mesh import make_mesh
-from plssvm_sparse_fp22_tpu.parallel.sharded import make_sharded_learn, shard_system
-from plssvm_sparse_fp22_tpu.solver.cg import cg_solve
-from plssvm_sparse_fp22_tpu.types import KernelType
-from plssvm_sparse_fp22_tpu.utils import oracle
+from plssvm_sparse_fp22.ops.matvec import build_operator
+from plssvm_sparse_fp22.parallel.mesh import make_mesh
+from plssvm_sparse_fp22.parallel.sharded import make_sharded_learn, shard_system
+from plssvm_sparse_fp22.solver.cg import cg_solve
+from plssvm_sparse_fp22.types import KernelType
+from plssvm_sparse_fp22.utils import oracle
 
 from utils import make_blobs
 
@@ -75,29 +75,6 @@ def test_sharded_learn_matches_single_device(kernel, mode, ndev):
     assert bias == pytest.approx(bias_ref, rel=1e-3, abs=1e-3)
 
 
-@pytest.mark.parametrize("ndev", [2, 8])
-def test_sharded_implicit_pallas_ring(ndev):
-    """The ring implicit mode with the fused Pallas kernel per hop
-    (interpret mode on CPU) matches the numpy oracle."""
-    X, y, X_pad, b_pad, mask, dept = _padded_system()
-    eps, imax, cost = 1e-6, 60, 2.0
-    mesh = make_mesh(ndev)
-    learn = make_sharded_learn(mesh, KernelType.rbf, HYPER["degree"],
-                               "implicit", use_pallas=True)
-    Xs, bs, ms = shard_system(mesh, X_pad, b_pad, mask)
-    x_sh, s, t, QA, iters, delta, delta0 = learn(
-        Xs, jnp.asarray(X[-1]), bs, ms,
-        jnp.float64(HYPER["gamma"]), jnp.float64(HYPER["coef0"]),
-        jnp.float64(cost), jnp.float64(eps), jnp.int32(imax),
-    )
-    alpha_ref, bias_ref, info = oracle.solve_lssvm(
-        X, y, kernel=KernelType.rbf, cost=cost, epsilon=eps, max_iter=imax,
-        **HYPER,
-    )
-    np.testing.assert_allclose(np.asarray(x_sh)[:dept], alpha_ref[:dept],
-                               rtol=1e-4, atol=1e-4)
-
-
 @pytest.mark.parametrize("kernel", KERNELS)
 @pytest.mark.parametrize("ndev", [2, 4])
 def test_feature_sharded_learn_matches_oracle(kernel, ndev):
@@ -106,7 +83,7 @@ def test_feature_sharded_learn_matches_oracle(kernel, ndev):
     (``feature_ranges_``, ``gpu_csvm.cpp:130-157``) — kept as an option.
     The reference supports it for the linear kernel only
     (``CUDA/csvm.cu:61-63``); here all three kernels work."""
-    from plssvm_sparse_fp22_tpu.parallel.sharded import (
+    from plssvm_sparse_fp22.parallel.sharded import (
         make_feature_sharded_learn, shard_system_feature)
 
     n, f = 97, 16  # f must divide evenly over ndev
@@ -159,3 +136,29 @@ def test_sharded_matvec_determinism(ndev):
     out2 = learn(*args)
     np.testing.assert_array_equal(np.asarray(out1[0]), np.asarray(out2[0]))
     assert float(out1[5]) == float(out2[5])
+
+
+@pytest.mark.parametrize("ndev", [2, 8])
+def test_sharded_implicit_ring_f32(ndev):
+    """The ring implicit mode in f32 (the dtype the CLI's --use_float and
+    the GPU default run) matches the numpy oracle."""
+    X, y, X_pad, b_pad, mask, dept = _padded_system()
+    eps, imax, cost = 1e-6, 60, 2.0
+    mesh = make_mesh(ndev)
+    learn = make_sharded_learn(mesh, KernelType.rbf, HYPER["degree"],
+                               "implicit")
+    f32 = np.float32
+    Xs, bs, ms = shard_system(mesh, X_pad.astype(f32), b_pad.astype(f32),
+                              mask.astype(f32))
+    x_sh, s, t, QA, iters, delta, delta0 = learn(
+        Xs, jnp.asarray(X[-1], f32), bs, ms,
+        f32(HYPER["gamma"]), f32(HYPER["coef0"]),
+        f32(cost), f32(eps), jnp.int32(imax),
+    )
+    assert x_sh.dtype == jnp.float32
+    alpha_ref, bias_ref, info = oracle.solve_lssvm(
+        X, y, kernel=KernelType.rbf, cost=cost, epsilon=eps, max_iter=imax,
+        **HYPER,
+    )
+    np.testing.assert_allclose(np.asarray(x_sh)[:dept], alpha_ref[:dept],
+                               rtol=1e-3, atol=1e-3)

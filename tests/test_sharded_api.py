@@ -2,7 +2,7 @@
 CLI transparently use every visible device (8 virtual CPU devices here).
 
 The reference's ``learn()`` transparently spans all GPUs
-(``gpu_csvm.cpp:130-157``); these tests pin that behavior for the TPU build:
+(``gpu_csvm.cpp:130-157``); these tests pin that behavior for this build:
 zero new flags, oracle-parity results, and feature-flag parity (checkpoint /
 jacobi / verbose) across the single-chip, sharded, and sparse learn paths.
 """
@@ -12,13 +12,13 @@ import os
 import numpy as np
 import pytest
 
-from plssvm_sparse_fp22_tpu.cli.predict import main as predict_main
-from plssvm_sparse_fp22_tpu.cli.train import main as train_main
-from plssvm_sparse_fp22_tpu.io.model import parse_model_file
-from plssvm_sparse_fp22_tpu.models import make_csvm
-from plssvm_sparse_fp22_tpu.params import Parameter
-from plssvm_sparse_fp22_tpu.types import KernelType
-from plssvm_sparse_fp22_tpu.utils import oracle
+from plssvm_sparse_fp22.cli.predict import main as predict_main
+from plssvm_sparse_fp22.cli.train import main as train_main
+from plssvm_sparse_fp22.io.model import parse_model_file
+from plssvm_sparse_fp22.models import make_csvm
+from plssvm_sparse_fp22.params import Parameter
+from plssvm_sparse_fp22.types import KernelType
+from plssvm_sparse_fp22.utils import oracle
 
 from utils import make_blobs
 
@@ -40,7 +40,7 @@ def _train(X, y, kernel, **overrides):
                        print_info=False, dtype=np.float64, **HYPER)
     for k, v in overrides.items():
         setattr(params, k, v)
-    from plssvm_sparse_fp22_tpu.io.libsvm import ParsedData
+    from plssvm_sparse_fp22.io.libsvm import ParsedData
     import scipy.sparse as sp
 
     params.data = ParsedData(csr=sp.csr_matrix(X), values=y, _dense=X)
@@ -122,7 +122,7 @@ def test_sharded_predict_matches_oracle_decision(kernel, blobs):
 @pytest.mark.parametrize("flags", ["jacobi", "checkpoint", "verbose"])
 def test_sharded_feature_flags(flags, blobs, oracle_solutions, tmp_path, capsys):
     """checkpoint / jacobi / verbose_cg work on the sharded learn path with
-    the same semantics as single-chip (VERDICT r2 #6: one CG everywhere)."""
+    the same semantics as single-chip (one CG everywhere)."""
     X, y = blobs
     overrides = {}
     if flags == "jacobi":
@@ -184,7 +184,7 @@ def test_sparse_checkpoint_raises_loudly(blobs, tmp_path):
     """Paths that genuinely cannot checkpoint refuse loudly (single-chip
     sparse); sparse rbf *within the memory budget on a mesh* densifies onto
     the sharded dense path and therefore checkpoints fine."""
-    from plssvm_sparse_fp22_tpu.exceptions import PLSSVMError
+    from plssvm_sparse_fp22.exceptions import PLSSVMError
 
     X, y = blobs
     with pytest.raises(PLSSVMError, match="sparse"):
@@ -254,7 +254,7 @@ def _train_sparse(csr, y, kernel, **overrides):
                        sparse_threshold=1.0, **HYPER)
     for k, v in overrides.items():
         setattr(params, k, v)
-    from plssvm_sparse_fp22_tpu.io.libsvm import ParsedData
+    from plssvm_sparse_fp22.io.libsvm import ParsedData
 
     params.data = ParsedData(csr=csr, values=y)
     params.values = y
@@ -356,7 +356,7 @@ def test_wide_sparse_on_mesh_picks_gram_tier(monkeypatch):
 
 class TestFeatureShardedProduct:
     """Wide-dense data (f/p > D) feature-shards through the product surface
-    with zero new flags (VERDICT r3 #3; the reference's own multi-GPU
+    with zero new flags (the reference's own multi-GPU
     decomposition, gpu_csvm.cpp:130-157)."""
 
     @pytest.fixture(scope="class")
@@ -397,7 +397,7 @@ class TestFeatureShardedProduct:
         _assert_matches(svm.alphas, svm.bias_, svm_1.alphas, svm_1.bias_)
 
     def test_invalid_axis_is_loud(self, wide_blobs, monkeypatch):
-        from plssvm_sparse_fp22_tpu.exceptions import PLSSVMError
+        from plssvm_sparse_fp22.exceptions import PLSSVMError
 
         monkeypatch.setenv("PLSSVM_SHARD_AXIS", "bogus")
         X, y = wide_blobs
@@ -413,8 +413,8 @@ class TestFeatureShardedProduct:
     @pytest.mark.parametrize("flags", ["checkpoint", "verbose"])
     def test_feature_sharded_chunked_cg(self, flags, wide_blobs, tmp_path,
                                         capsys):
-        """checkpoint / verbose_cg on the FEATURE-sharded path (VERDICT r4
-        #8: the reference has per-iteration output on every path,
+        """checkpoint / verbose_cg on the FEATURE-sharded path (the
+        reference has per-iteration output on every path,
         gpu_csvm.cpp:245-247) — same results as the plain feature learn."""
         X, y = wide_blobs
         overrides = {"gamma": 1.0 / 2048}
@@ -482,4 +482,29 @@ def test_sparse_ring_with_heavy_rows(monkeypatch):
         svm.last_cg_info
     monkeypatch.delenv("PLSSVM_K_CACHE_BYTES")
     svm_d = _train(csr.toarray(), y, KernelType.rbf, devices=1)
+    _assert_matches(svm.alphas, svm.bias_, svm_d.alphas, svm_d.bias_)
+
+
+@pytest.mark.parametrize("kernel", [KernelType.polynomial, KernelType.rbf])
+@pytest.mark.parametrize("heavy", [False, True])
+def test_sparse_ring_windowed_sweep(monkeypatch, kernel, heavy):
+    """The scanned hop sweep of the panel ring (uniform panels, the shard
+    padded to a panel multiple, heavy rows placed at traced positions)
+    matches the dense single-chip model, as the unrolled sweep does."""
+    monkeypatch.setenv("PLSSVM_K_CACHE_BYTES", "100000")
+    monkeypatch.setenv("PLSSVM_SPARSE_PANEL_SWEEP", "windowed")
+    rng = np.random.default_rng(61)
+    n, f = 1100, 300
+    csr = _random_sparse(n, f, density=0.05, seed=61)[0].tolil()
+    if heavy:
+        for r in (3, 300, 540, 1050):  # heavy rows on different shards
+            csr[r, :] = rng.normal(size=f)
+    csr = csr.tocsr()
+    y = np.where(rng.normal(size=n) > 0, 1.0, -1.0)
+    svm = _train_sparse(csr, y, kernel, devices=4, max_iter=300)
+    assert svm.last_cg_info["mode"] == "sharded_sparse_implicit[4]", \
+        svm.last_cg_info
+    monkeypatch.delenv("PLSSVM_K_CACHE_BYTES")
+    monkeypatch.delenv("PLSSVM_SPARSE_PANEL_SWEEP")
+    svm_d = _train(csr.toarray(), y, kernel, devices=1)
     _assert_matches(svm.alphas, svm.bias_, svm_d.alphas, svm_d.bias_)

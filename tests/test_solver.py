@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from plssvm_sparse_fp22_tpu.ops.kernel_functions import gram_block, kernel_scalar
-from plssvm_sparse_fp22_tpu.ops.matvec import build_operator
-from plssvm_sparse_fp22_tpu.solver.cg import cg_solve
-from plssvm_sparse_fp22_tpu.types import KernelType
-from plssvm_sparse_fp22_tpu.utils import oracle
+from plssvm_sparse_fp22.ops.kernel_functions import gram_block, kernel_scalar
+from plssvm_sparse_fp22.ops.matvec import build_operator
+from plssvm_sparse_fp22.solver.cg import cg_solve
+from plssvm_sparse_fp22.types import KernelType
+from plssvm_sparse_fp22.utils import oracle
 
 from utils import make_blobs
 
@@ -55,12 +55,9 @@ def test_kernel_scalar(kernel):
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
-@pytest.mark.parametrize("mode", ["linear", "cached", "implicit", "pallas"])
+@pytest.mark.parametrize("mode", ["linear", "cached", "implicit"])
 def test_matvec_matches_explicit_matrix(kernel, mode):
-    """A v from the operator == A v from the explicitly assembled matrix.
-
-    mode='pallas' runs the fused Mosaic kernel in interpreter mode (the only
-    way to execute it off-TPU)."""
+    """A v from the operator == A v from the explicitly assembled matrix."""
     if mode == "linear" and kernel != KernelType.linear:
         pytest.skip("mode 'linear' is linear-kernel only")
     X, y, X_pad, mask, dept, D, cost = _setup_system()
@@ -71,13 +68,9 @@ def test_matvec_matches_explicit_matrix(kernel, mode):
     q[:dept] = q_short
     QA = oracle.kernel_function(kernel, X[-1], X[-1], **HYPER) + cost_inv
 
-    from plssvm_sparse_fp22_tpu.types import BackendType
-
-    backend = BackendType.pallas if mode == "pallas" else BackendType.xla
     op = build_operator(
         kernel, jnp.asarray(X_pad), jnp.asarray(q), jnp.asarray(mask), QA, cost_inv,
-        mode="implicit" if mode == "pallas" else mode, row_block=32,
-        backend=backend, **HYPER,
+        mode=mode, row_block=32, **HYPER,
     )
 
     rng = np.random.default_rng(1)
@@ -87,62 +80,9 @@ def test_matvec_matches_explicit_matrix(kernel, mode):
     got = np.asarray(op.matvec(jnp.asarray(v)))
     want = oracle.implicit_matvec(kernel, X, q_short, QA, cost_inv, v[:dept], **HYPER)
 
-    # the pallas kernel accumulates in f32 (TPU has no f64); XLA paths run
-    # in the input dtype (f64 here)
-    tol = 1e-4 if mode == "pallas" else 1e-10
-    np.testing.assert_allclose(got[:dept], want, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got[:dept], want, rtol=1e-10, atol=1e-10)
     # padding stays exactly zero (the invariant CG relies on)
     np.testing.assert_array_equal(got[dept:], np.zeros(D - dept))
-
-
-@pytest.mark.parametrize("kernel", KERNELS)
-@pytest.mark.parametrize("shape", [(64, 7), (96, 33), (40, 5)])
-def test_sym_pallas_kernel_matches_oracle(kernel, shape):
-    """The symmetric (triangular block-pair) Pallas kernel == full Gram
-    matvec, including non-block-aligned shapes (interpret mode off-TPU)."""
-    from plssvm_sparse_fp22_tpu.ops.pallas_matvec import gram_matvec_pallas_sym
-
-    D, f = shape
-    rng = np.random.default_rng(3)
-    X = rng.normal(size=(D, f))
-    v = rng.normal(size=D)
-    want = oracle.kernel_matrix(kernel, X, X, **HYPER) @ v
-    got = np.asarray(
-        gram_matvec_pallas_sym(
-            kernel, jnp.asarray(X, np.float32), jnp.asarray(v, np.float32),
-            bm=32, bk=128, interpret=True, **HYPER,
-        )
-    )
-    # default tier is bf16x3: ~1e-4 error relative to the result scale
-    np.testing.assert_allclose(got, want, rtol=1e-3,
-                               atol=3e-4 * np.max(np.abs(want)))
-
-
-def test_sym_pallas_precision_tiers():
-    """All MXU tiers of the symmetric kernel agree with the oracle within
-    their documented accuracy (exact < bf16x3 <= bf16)."""
-    from jax import lax
-
-    from plssvm_sparse_fp22_tpu.ops.pallas_matvec import gram_matvec_pallas_sym
-
-    rng = np.random.default_rng(4)
-    X = rng.normal(size=(64, 16))
-    v = rng.normal(size=64)
-    want = oracle.kernel_matrix(KernelType.rbf, X, X, **HYPER) @ v
-    scale = np.max(np.abs(want))
-    for prec, tol in [
-        (lax.Precision.HIGHEST, 1e-5),
-        (lax.Precision.HIGH, 1e-3),
-        (lax.Precision.DEFAULT, 3e-2),
-    ]:
-        got = np.asarray(
-            gram_matvec_pallas_sym(
-                KernelType.rbf, jnp.asarray(X, np.float32),
-                jnp.asarray(v, np.float32), bm=32, bk=128, interpret=True,
-                precision=prec, **HYPER,
-            )
-        )
-        assert np.max(np.abs(got - want)) / scale < tol, prec
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -179,7 +119,7 @@ def test_jacobi_pcg_converges_faster():
     """Jacobi-preconditioned CG reaches the same solution in fewer (or equal)
     iterations on a badly row-scaled system; the stopping criterion stays on
     the plain residual (capability extension over the reference)."""
-    from plssvm_sparse_fp22_tpu.models.base import _jacobi_minv
+    from plssvm_sparse_fp22.models.base import _jacobi_minv
 
     rng = np.random.default_rng(11)
     n, f = 120, 300
@@ -233,9 +173,9 @@ def test_precond_via_model_api():
     """precond='jacobi' through the CSVM API gives the same model."""
     import scipy.sparse as sp
 
-    from plssvm_sparse_fp22_tpu.io.libsvm import ParsedData
-    from plssvm_sparse_fp22_tpu.models.factory import make_csvm
-    from plssvm_sparse_fp22_tpu.params import Parameter
+    from plssvm_sparse_fp22.io.libsvm import ParsedData
+    from plssvm_sparse_fp22.models.factory import make_csvm
+    from plssvm_sparse_fp22.params import Parameter
 
     X, y = make_blobs(80, 10, seed=9)
     out = {}
@@ -292,92 +232,3 @@ def test_cg_refresh_interval_semantics():
     # approximate solutions; compare loosely
     np.testing.assert_allclose(np.asarray(res.x)[:dept], alpha_ref[:dept], rtol=1e-3, atol=1e-5)
     assert float(res.delta) <= 1e-16 * float(res.delta0)
-
-
-class TestSymBlockTable:
-    """Per-device-kind block-size table + autotune cache (VERDICT r2 #8)."""
-
-    def test_known_kind_table_used(self):
-        from plssvm_sparse_fp22_tpu.ops import pallas_matvec as pm
-
-        assert pm._SYM_BM_EFFICIENCY_BY_KIND["TPU v5 lite"][1024] == 0.49
-        # unknown kinds (and the CPU test runner) fall back to the default
-        eff = pm._sym_bm_efficiency()
-        assert set(eff) == {256, 512, 1024}
-
-    def test_choose_sym_bm_env_override(self, monkeypatch):
-        from plssvm_sparse_fp22_tpu.ops import pallas_matvec as pm
-
-        monkeypatch.setenv("PLSSVM_SYM_BLOCK_SIZE", "512")
-        assert pm._choose_sym_bm(4096) == 512
-        monkeypatch.delenv("PLSSVM_SYM_BLOCK_SIZE")
-        # large systems pick the cheapest-per-element block
-        assert pm._choose_sym_bm(16384) == 1024
-        # tiny systems avoid quadratic padding blowup
-        assert pm._choose_sym_bm(256) == 256
-
-    def test_effective_blocks_vmem_guard(self, monkeypatch):
-        """Auto-chosen 1024 blocks only survive a single-step k grid: a
-        k-sweep double-buffers the operand windows and overflows the 16 MB
-        scoped VMEM (measured 17.88 MB at f=4096 on v5e)."""
-        from plssvm_sparse_fp22_tpu.ops import pallas_matvec as pm
-
-        # narrow features (one k step): the large block is kept
-        assert pm._effective_sym_blocks(16384, 256, None, 512) == (1024, 256)
-        # wide features (k grid > 1): auto drops to 512
-        assert pm._effective_sym_blocks(16384, 4096, None, 512) == (512, 512)
-        # an explicitly forced block is honored verbatim (arg or env)
-        assert pm._effective_sym_blocks(16384, 4096, 1024, 512) == (1024, 256)
-        monkeypatch.setenv("PLSSVM_SYM_BLOCK_SIZE", "1024")
-        assert pm._effective_sym_blocks(16384, 4096, None, 512) == (1024, 256)
-
-    def test_autotune_cache_roundtrip(self, monkeypatch, tmp_path):
-        """A cached autotune table is read back instead of re-measuring."""
-        import json
-
-        from plssvm_sparse_fp22_tpu.ops import pallas_matvec as pm
-
-        monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path))
-        path = pm._autotune_cache_path("TPU vX test")
-        import os as _os
-
-        _os.makedirs(_os.path.dirname(path), exist_ok=True)
-        with open(path, "w") as fh:
-            json.dump({"256": 1.0, "512": 0.9, "1024": 0.8}, fh)
-        table = pm._autotune_sym_bm("TPU vX test")
-        assert table == {256: 1.0, 512: 0.9, 1024: 0.8}
-
-    def test_unknown_kind_autotunes_by_default(self, monkeypatch):
-        """An unmeasured device kind (a v4/v6e) must NOT silently inherit
-        the v5e cost table: the one-shot autotune runs by default for
-        unknown kinds (VERDICT r4 weak #7), while known kinds keep the
-        static table and PLSSVM_SYM_AUTOTUNE=0 disables tuning."""
-        import jax as _jax
-
-        from plssvm_sparse_fp22_tpu.ops import pallas_matvec as pm
-
-        calls = []
-        sentinel = {256: 1.0, 512: 0.5, 1024: 0.25}
-        monkeypatch.setattr(pm, "_autotune_sym_bm",
-                            lambda kind: calls.append(kind) or sentinel)
-
-        class FakeDev:
-            device_kind = "TPU v9 hypothetical"
-
-        monkeypatch.setattr(_jax, "devices", lambda: [FakeDev()])
-        monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
-        assert pm._sym_bm_efficiency() == sentinel
-        assert calls == ["TPU v9 hypothetical"]
-
-        # known kind: static table, no tuning
-        calls.clear()
-        FakeDev.device_kind = "TPU v5 lite"
-        assert pm._sym_bm_efficiency() == \
-            pm._SYM_BM_EFFICIENCY_BY_KIND["TPU v5 lite"]
-        assert calls == []
-
-        # explicit opt-out pins the fallback even for unknown kinds
-        FakeDev.device_kind = "TPU v9 hypothetical"
-        monkeypatch.setenv("PLSSVM_SYM_AUTOTUNE", "0")
-        assert pm._sym_bm_efficiency() == pm._SYM_BM_DEFAULT
-        assert calls == []

@@ -11,17 +11,17 @@ import scipy.sparse as sp
 
 import jax.numpy as jnp
 
-import plssvm_sparse_fp22_tpu as pt
-from plssvm_sparse_fp22_tpu.io.libsvm import ParsedData
-from plssvm_sparse_fp22_tpu.io.model import parse_model_file, write_model_file
-from plssvm_sparse_fp22_tpu.ops.sparse import (
+import plssvm_sparse_fp22 as pt
+from plssvm_sparse_fp22.io.libsvm import ParsedData
+from plssvm_sparse_fp22.io.model import parse_model_file, write_model_file
+from plssvm_sparse_fp22.ops.sparse import (
     ELLMatrix,
     ell_matvec,
     ell_rmatvec,
     host_gram_from_csr,
 )
-from plssvm_sparse_fp22_tpu.params import Parameter
-from plssvm_sparse_fp22_tpu.types import KernelType
+from plssvm_sparse_fp22.params import Parameter
+from plssvm_sparse_fp22.types import KernelType
 
 
 def _random_sparse(n, f, density=0.1, seed=0):
@@ -166,12 +166,12 @@ def test_sparse_fixture_trains(reference_data_dir):
 
 
 class TestDeviceGram:
-    """MXU blockwise Gram assembly from ELL vs the host SpGEMM oracle."""
+    """Blockwise device Gram assembly from ELL vs the host SpGEMM oracle."""
 
     def test_matches_host_gram(self):
         import scipy.sparse as sp
 
-        from plssvm_sparse_fp22_tpu.ops.sparse import (
+        from plssvm_sparse_fp22.ops.sparse import (
             ELLMatrix,
             device_gram_from_ell,
             host_gram_from_csr,
@@ -190,7 +190,7 @@ class TestDeviceGram:
         (the removed blockwise assembly required n % row_block == 0)."""
         import scipy.sparse as sp
 
-        from plssvm_sparse_fp22_tpu.ops.sparse import ELLMatrix, device_gram_from_ell
+        from plssvm_sparse_fp22.ops.sparse import ELLMatrix, device_gram_from_ell
 
         csr = sp.random(10, 5, density=0.5, random_state=1, format="csr")
         ell = ELLMatrix.from_csr(csr, dtype=np.float64)
@@ -203,9 +203,9 @@ class TestDeviceGram:
         the device Gram as with the host SpGEMM."""
         import scipy.sparse as sp
 
-        from plssvm_sparse_fp22_tpu.params import Parameter
-        from plssvm_sparse_fp22_tpu.models.factory import make_csvm
-        from plssvm_sparse_fp22_tpu.types import KernelType
+        from plssvm_sparse_fp22.params import Parameter
+        from plssvm_sparse_fp22.models.factory import make_csvm
+        from plssvm_sparse_fp22.types import KernelType
 
         rng = np.random.default_rng(23)
         X = sp.random(120, 40, density=0.12, random_state=2, format="csr")
@@ -235,7 +235,7 @@ class TestDeviceGram:
 
 
 class TestHybridSparse:
-    """ELL+COO hybrid: bounded memory on skewed row fills (VERDICT r2 #7)."""
+    """ELL+COO hybrid: bounded memory on skewed row fills."""
 
     def _skewed(self, n=50, f=400, seed=3):
         rng = np.random.default_rng(seed)
@@ -247,7 +247,7 @@ class TestHybridSparse:
         return csr
 
     def test_pack_memory_bounded(self):
-        from plssvm_sparse_fp22_tpu.ops.sparse import HybridSparse
+        from plssvm_sparse_fp22.ops.sparse import HybridSparse
 
         csr = self._skewed()
         h = HybridSparse.from_csr(csr, dtype=np.float64)
@@ -260,7 +260,7 @@ class TestHybridSparse:
         assert hybrid_cells < ell_plain.values.size / 5
 
     def test_matvec_parity(self):
-        from plssvm_sparse_fp22_tpu.ops.sparse import (
+        from plssvm_sparse_fp22.ops.sparse import (
             HybridSparse, hybrid_matvec, hybrid_rmatvec, hybrid_row_sqnorms)
 
         csr = self._skewed()
@@ -279,7 +279,7 @@ class TestHybridSparse:
 
 class TestStreamingImplicit:
     """The sparse north star: poly/rbf CG without materializing the Gram
-    (BASELINE.json config 3; VERDICT r2 #2)."""
+    (BASELINE.json config 3)."""
 
     @pytest.mark.parametrize("kernel", [KernelType.polynomial, KernelType.rbf])
     def test_streaming_matches_dense(self, kernel, monkeypatch):
@@ -342,21 +342,21 @@ class TestStreamingImplicit:
                                    rtol=1e-5, atol=1e-7)
 
     def test_strategy_chooser(self, monkeypatch):
-        from plssvm_sparse_fp22_tpu.ops.sparse import streaming_stream_strategy
+        from plssvm_sparse_fp22.ops.sparse import streaming_stream_strategy
 
-        # moderate density -> densified panels at MXU rate
+        # moderate density -> densified panels at GEMM rate
         assert streaming_stream_strategy(100, 2048) == "panel"
         # news20-scale extreme sparsity -> nnz-proportional gather
         assert streaming_stream_strategy(30, 1_300_000) == "gather"
         monkeypatch.setenv("PLSSVM_SPARSE_STREAM", "gather")
         assert streaming_stream_strategy(100, 2048) == "gather"
-        # the legacy scatter-densify strategy name maps to its replacement
-        monkeypatch.setenv("PLSSVM_SPARSE_STREAM", "mxu")
+        # a forced panel strategy holds even at extreme sparsity
+        monkeypatch.setenv("PLSSVM_SPARSE_STREAM", "panel")
         assert streaming_stream_strategy(30, 1_300_000) == "panel"
 
     def test_memory_guard_picks_streaming(self, monkeypatch):
         """A Gram too big for the K-cache budget falls back to streaming
-        instead of OOMing the host (VERDICT r2 #7 memory guard)."""
+        instead of OOMing the host (memory guard)."""
         monkeypatch.setenv("PLSSVM_K_CACHE_BYTES", "1000")
         csr, y = _random_sparse(80, 20, density=0.2, seed=17)
         svm = pt.CSVM(_make_params(csr, y, KernelType.rbf, sparse=True))
@@ -406,11 +406,11 @@ class TestStreamingImplicit:
 
 
 class TestTiledELL:
-    """Lane-tiled ELL packing + scatter-free compare-densify (round 4: the
-    panel streaming strategy's building blocks)."""
+    """Lane-tiled ELL packing + scatter-free compare-densify (the panel
+    streaming strategy's building blocks)."""
 
     def test_densify_roundtrip(self):
-        from plssvm_sparse_fp22_tpu.ops.sparse import TiledELL, densify_tiled
+        from plssvm_sparse_fp22.ops.sparse import TiledELL, densify_tiled
 
         csr, _ = _random_sparse(40, 300, density=0.08, seed=3)
         tell = TiledELL.from_csr(csr, dtype=np.float64)
@@ -422,7 +422,7 @@ class TestTiledELL:
         np.testing.assert_allclose(dense, expect, rtol=1e-14)
 
     def test_densify_pad_rows(self):
-        from plssvm_sparse_fp22_tpu.ops.sparse import TiledELL, densify_tiled
+        from plssvm_sparse_fp22.ops.sparse import TiledELL, densify_tiled
 
         csr, _ = _random_sparse(10, 50, density=0.2, seed=5)
         tell = TiledELL.from_csr(csr, dtype=np.float64, pad_rows=16)
@@ -432,7 +432,7 @@ class TestTiledELL:
         assert not dense[10:].any() and not dense[:, 50:].any()
 
     def test_tiled_matvec(self):
-        from plssvm_sparse_fp22_tpu.ops.sparse import TiledELL, tiled_matvec
+        from plssvm_sparse_fp22.ops.sparse import TiledELL, tiled_matvec
 
         csr, _ = _random_sparse(30, 200, density=0.1, seed=7)
         tell = TiledELL.from_csr(csr, dtype=np.float64)
@@ -442,7 +442,7 @@ class TestTiledELL:
         np.testing.assert_allclose(got, csr @ u[:200], rtol=1e-12)
 
     def test_storage_never_exceeds_padded_dense(self):
-        from plssvm_sparse_fp22_tpu.ops.sparse import TiledELL
+        from plssvm_sparse_fp22.ops.sparse import TiledELL
 
         rng = np.random.default_rng(11)
         csr = sp.random(20, 140, density=0.9, format="csr", random_state=rng)
@@ -451,10 +451,10 @@ class TestTiledELL:
         assert tell.vals.shape[1] <= tell.padded_features
 
     def test_panel_matvec_matches_dense_gram(self):
-        """The multi-panel streaming matvec (XLA pair fallback) equals the
-        dense kernel matvec — including ragged last panels."""
-        from plssvm_sparse_fp22_tpu.ops.kernel_functions import gram_matrix
-        from plssvm_sparse_fp22_tpu.ops.sparse import (TiledELL,
+        """The multi-panel streaming matvec equals the dense kernel matvec
+        — including ragged last panels."""
+        from plssvm_sparse_fp22.ops.kernel_functions import gram_matrix
+        from plssvm_sparse_fp22.ops.sparse import (TiledELL,
                                                        make_tiled_panel_matvec)
 
         csr, _ = _random_sparse(100, 60, density=0.15, seed=13)
@@ -464,8 +464,7 @@ class TestTiledELL:
             for panel_rows in (100, 32, 48):
                 mv, sq = make_tiled_panel_matvec(
                     tell.vals, tell.lcols, int(kernel), 3, gamma, coef0,
-                    ntiles=tell.ntiles, Lt=tell.Lt, panel_rows=panel_rows,
-                    use_pallas=False)
+                    ntiles=tell.ntiles, Lt=tell.Lt, panel_rows=panel_rows)
                 v = np.random.default_rng(17).normal(size=100)
                 K = np.asarray(gram_matrix(kernel, jnp.asarray(csr.toarray()),
                                            degree=3, gamma=gamma, coef0=coef0))
@@ -481,8 +480,8 @@ class TestTiledELL:
         beyond-HBM schedule) equals the dense kernel matvec — including
         panel counts that do not divide the row count (internal zero-row
         padding) and the single-panel degenerate case."""
-        from plssvm_sparse_fp22_tpu.ops.kernel_functions import gram_matrix
-        from plssvm_sparse_fp22_tpu.ops.sparse import (
+        from plssvm_sparse_fp22.ops.kernel_functions import gram_matrix
+        from plssvm_sparse_fp22.ops.sparse import (
             TiledELL, make_tiled_panel_matvec_windowed)
 
         csr, _ = _random_sparse(100, 60, density=0.15, seed=13)
@@ -492,8 +491,7 @@ class TestTiledELL:
             for panel_rows in (100, 32, 48):
                 mv, sq = make_tiled_panel_matvec_windowed(
                     tell.vals, tell.lcols, int(kernel), 3, gamma, coef0,
-                    ntiles=tell.ntiles, Lt=tell.Lt, panel_rows=panel_rows,
-                    use_pallas=False)
+                    ntiles=tell.ntiles, Lt=tell.Lt, panel_rows=panel_rows)
                 v = np.random.default_rng(17).normal(size=100)
                 K = np.asarray(gram_matrix(kernel, jnp.asarray(csr.toarray()),
                                            degree=3, gamma=gamma, coef0=coef0))
@@ -507,8 +505,8 @@ class TestTiledELL:
     def test_windowed_matvec_heavy_rows(self):
         """Windowed sweep with a heavy-row spill: traced-position placement
         must land heavy rows in the right panels across panel boundaries."""
-        from plssvm_sparse_fp22_tpu.ops.kernel_functions import gram_matrix
-        from plssvm_sparse_fp22_tpu.ops.sparse import (
+        from plssvm_sparse_fp22.ops.kernel_functions import gram_matrix
+        from plssvm_sparse_fp22.ops.sparse import (
             TiledHybrid, make_tiled_panel_matvec_windowed)
 
         rng = np.random.default_rng(31)
@@ -525,7 +523,7 @@ class TestTiledELL:
         mv, sq = make_tiled_panel_matvec_windowed(
             th.tell.vals, th.tell.lcols, int(KernelType.rbf), 3, 0.1, 0.0,
             ntiles=th.tell.ntiles, Lt=th.tell.Lt, panel_rows=32,
-            use_pallas=False, heavy=th.heavy,
+            heavy=th.heavy,
             heavy_rows=tuple(int(r) for r in th.heavy_idx),
             heavy_sq_vec=jnp.asarray(hs))
         v = rng.normal(size=96)
@@ -536,44 +534,42 @@ class TestTiledELL:
 
 
 class TestPairGramContrib:
-    """The Pallas panel-pair kernel vs its XLA twin (interpret mode)."""
+    """The panel-pair product (one GEMM + kernel function per pair) vs the
+    oracle's kernel matrix."""
 
     @pytest.mark.parametrize("same", [True, False])
     @pytest.mark.parametrize("kernel", [KernelType.linear,
                                         KernelType.polynomial,
                                         KernelType.rbf])
-    def test_pallas_matches_xla(self, kernel, same):
-        from plssvm_sparse_fp22_tpu.ops.pallas_matvec import (
-            pair_gram_contrib, pair_gram_contrib_xla)
+    def test_matches_oracle(self, kernel, same):
+        from plssvm_sparse_fp22.ops.sparse import pair_gram_contrib
+        from plssvm_sparse_fp22.utils import oracle
 
         rng = np.random.default_rng(19)
         Di, Dj, f = 24, 24 if same else 40, 33
-        Xi = jnp.asarray(rng.normal(size=(Di, f)))
-        Xj = Xi if same else jnp.asarray(rng.normal(size=(Dj, f)))
-        vi = jnp.asarray(rng.normal(size=Di))
-        vj = vi if same else jnp.asarray(rng.normal(size=Dj))
-        kw = dict(same=same, degree=3, gamma=0.2, coef0=1.0)
-        oi_p, oj_p = pair_gram_contrib(kernel, Xi, Xj, vi, vj,
-                                       interpret=True, bm=16, **kw)
-        oi_x, oj_x = pair_gram_contrib_xla(kernel, Xi, Xj, vi, vj, **kw)
-        if same:
-            # split differently (triangular + transpose vs full), but the
-            # sums are the same operator applied to v
-            np.testing.assert_allclose(np.asarray(oi_p + oj_p),
-                                       np.asarray(oi_x + oj_x),
-                                       rtol=1e-10, atol=1e-12)
-        else:
-            np.testing.assert_allclose(np.asarray(oi_p), np.asarray(oi_x),
-                                       rtol=1e-10, atol=1e-12)
-            np.testing.assert_allclose(np.asarray(oj_p), np.asarray(oj_x),
-                                       rtol=1e-10, atol=1e-12)
+        Xi = rng.normal(size=(Di, f))
+        Xj = Xi if same else rng.normal(size=(Dj, f))
+        vi = rng.normal(size=Di)
+        vj = vi if same else rng.normal(size=Dj)
+        hyper = dict(degree=3, gamma=0.2, coef0=1.0)
+        Xi_d = jnp.asarray(Xi)
+        oi, oj = pair_gram_contrib(
+            kernel, Xi_d, Xi_d if same else jnp.asarray(Xj), jnp.asarray(vi),
+            jnp.asarray(vj), same=same, **hyper)
+        K = oracle.kernel_matrix(kernel, Xi, Xj, **hyper)
+        np.testing.assert_allclose(np.asarray(oi), K @ vj, rtol=1e-10,
+                                   atol=1e-12)
+        # a diagonal pair carries its whole product in out_i
+        want_j = np.zeros(Dj) if same else K.T @ vi
+        np.testing.assert_allclose(np.asarray(oj), want_j, rtol=1e-10,
+                                   atol=1e-12)
 
-    def test_panel_learn_pallas_interpret_matches_xla(self):
-        """End-to-end panel learn with the Pallas pair kernel (interpret)
-        equals the XLA-fallback learn."""
-        from plssvm_sparse_fp22_tpu.models.sparse_learn import (
+    def test_panel_learn_adaptive_plan_matches_fixed(self):
+        """The panel learn's two-tier plan (fast/accurate dot tiers on the
+        panel-pair products) converges to the fixed-tier solution."""
+        from plssvm_sparse_fp22.models.sparse_learn import (
             learn_sparse_panel_jit)
-        from plssvm_sparse_fp22_tpu.ops.sparse import TiledELL
+        from plssvm_sparse_fp22.ops.sparse import TiledELL
 
         csr, y = _random_sparse(80, 40, density=0.15, seed=23)
         dept = 79
@@ -589,10 +585,11 @@ class TestPairGramContrib:
         args = (tell.vals, tell.lcols, jnp.asarray(x_last), jnp.asarray(b),
                 jnp.asarray(mask), jnp.asarray(0.25), jnp.asarray(0.0),
                 jnp.asarray(1.0), jnp.asarray(1e-8), jnp.asarray(200))
-        out_x = learn_sparse_panel_jit(*args, use_pallas=False, **common)
-        out_p = learn_sparse_panel_jit(*args, use_pallas=True,
-                                       interpret=True, **common)
-        np.testing.assert_allclose(np.asarray(out_p[0]), np.asarray(out_x[0]),
+        out_x = learn_sparse_panel_jit(*args, **common)
+        out_a = learn_sparse_panel_jit(*args, precision_plan=("default", "highest"),
+                                       **common)
+        assert len(out_a) == 8  # the fast-iteration count rides along
+        np.testing.assert_allclose(np.asarray(out_a[0]), np.asarray(out_x[0]),
                                    rtol=1e-6, atol=1e-8)
 
 
@@ -602,7 +599,7 @@ class TestTiledHybridSkew:
     heavy-row block instead, keeping memory nnz-proportional."""
 
     def test_pack_memory_bounded(self):
-        from plssvm_sparse_fp22_tpu.ops.sparse import TiledELL, TiledHybrid
+        from plssvm_sparse_fp22.ops.sparse import TiledELL, TiledHybrid
 
         rng = np.random.default_rng(3)
         csr = sp.random(2000, 1024, density=0.02, format="lil",
@@ -669,15 +666,14 @@ def test_plan_sparse_panel_policy():
     """The shared panel-selection policy: moderate density plans a panel
     learn; extreme sparsity (gather regime) and dense-ish packings return
     None (one policy for the single-chip and ring learns)."""
-    from plssvm_sparse_fp22_tpu.models.base import CSVM
+    from plssvm_sparse_fp22.models.base import CSVM
 
     csr, y = _random_sparse(128, 64, density=0.1, seed=61)
     svm = pt.CSVM(_make_params(csr, y, KernelType.rbf, sparse=True))
     plan = svm._plan_sparse_panel(csr, 127, 128)
     assert plan is not None
-    th, use_pallas, sweep = plan
+    th, sweep = plan
     assert th.tell.vals.shape[0] == 128
-    assert use_pallas is False  # CPU test environment
     assert sweep == "unrolled"  # in-memory: the fast schedule
 
     # extreme sparsity: mean fill * 1024 < f -> gather regime, no plan
@@ -689,10 +685,10 @@ def test_plan_sparse_panel_policy():
 def test_sparse_tier_guards_respect_physical_memory(monkeypatch):
     """The gram / densify-X tiers are gated on the PHYSICAL working set,
     not just the cache budget: a dense X that fits the budget but whose
-    X + bf16-splits working set exceeds the chip must stream instead
-    (found live on v5e: an 8.6 GB dense X passed the 8 GiB budget check
-    and OOMed a 15.75 GB chip)."""
-    from plssvm_sparse_fp22_tpu.models.base import CSVM
+    X + transients working set exceeds the device must stream instead
+    (an 8.6 GB dense X once passed the 8 GiB budget check and ran out of
+    a 16 GB device's memory)."""
+    from plssvm_sparse_fp22.models.base import CSVM
 
     csr, y = _random_sparse(256, 64, density=0.1, seed=67)
     svm = pt.CSVM(_make_params(csr, y, KernelType.rbf, sparse=True))
@@ -710,10 +706,10 @@ def test_sparse_tier_guards_respect_physical_memory(monkeypatch):
 def test_plan_sparse_panel_beyond_memory_goes_windowed(monkeypatch):
     """When the unrolled sweep's ~4x-dense envelope exceeds physical
     memory, the plan switches to the bounded-liveness windowed sweep
-    instead of refusing (VERDICT r4 missing #1: the physically-beyond-HBM
+    instead of refusing (the physically-beyond-memory
     single-chip regime gets a panel-class answer).  Only when even the
     resident packing cannot fit does the plan return None (gather arm)."""
-    from plssvm_sparse_fp22_tpu.models.base import CSVM
+    from plssvm_sparse_fp22.models.base import CSVM
 
     csr, y = _random_sparse(128, 64, density=0.1, seed=61)
     svm = pt.CSVM(_make_params(csr, y, KernelType.rbf, sparse=True))
@@ -723,19 +719,70 @@ def test_plan_sparse_panel_beyond_memory_goes_windowed(monkeypatch):
     monkeypatch.setattr(CSVM, "_device_memory_bytes",
                         staticmethod(lambda: 4 * dense_bytes - 1))
     plan = svm._plan_sparse_panel(csr, 127, 128)
-    assert plan is not None and plan[2] == "windowed"
+    assert plan is not None and plan[1] == "windowed"
 
     # physical memory below even the packing -> gather arm
     monkeypatch.setattr(CSVM, "_device_memory_bytes",
                         staticmethod(lambda: 1024))
     assert svm._plan_sparse_panel(csr, 127, 128) is None
 
-    # ring planning scales the envelope per shard (advisor r4 medium):
+    # ring planning scales the envelope per shard:
     # a per-chip memory that refuses ndev=1 admits the 8-way ring
     monkeypatch.setattr(CSVM, "_device_memory_bytes",
                         staticmethod(lambda: 4 * dense_bytes // 2))
     ring = svm._plan_sparse_panel(csr, 127, 128, ndev=8)
-    assert ring is not None and ring[2] == "unrolled"
+    assert ring is not None and ring[1] == "unrolled"
+
+
+@pytest.mark.parametrize("pairs,dense,physical,forced,want", [
+    (1, None, None, None, "unrolled"),
+    (16, None, None, None, "unrolled"),          # at the cap
+    (17, None, None, None, "windowed"),          # past the cap
+    (2080, None, None, None, "windowed"),        # 64 panels
+    (3, 100, 400, None, "unrolled"),             # envelope fits
+    (3, 100, 399, None, "windowed"),             # envelope exceeds memory
+    (1, 100, 399, None, "windowed"),             # even for one panel
+    (2080, None, None, "unrolled", "unrolled"),  # forced
+    (1, None, None, "windowed", "windowed"),
+])
+def test_panel_sweep_strategy(monkeypatch, pairs, dense, physical, forced,
+                              want):
+    """The sweep goes windowed past the traced-pair cap or the unrolled
+    memory envelope; PLSSVM_SPARSE_PANEL_SWEEP overrides both."""
+    from plssvm_sparse_fp22.ops.sparse import (MAX_UNROLLED_PAIRS,
+                                               panel_sweep_strategy)
+
+    assert MAX_UNROLLED_PAIRS == 16
+    if forced:
+        monkeypatch.setenv("PLSSVM_SPARSE_PANEL_SWEEP", forced)
+    else:
+        monkeypatch.delenv("PLSSVM_SPARSE_PANEL_SWEEP", raising=False)
+    assert panel_sweep_strategy(pairs, dense, physical) == want
+
+
+@pytest.mark.parametrize("budget,ndev,want", [
+    (None, 1, "unrolled"),   # one panel
+    (None, 2, "unrolled"),
+    (1000, 1, "windowed"),   # 10 panels of 256 rows: 55 pairs
+    (1000, 2, "windowed"),   # 5 panels per shard: 25 hop products
+    (1000, 5, "unrolled"),   # 2 panels per shard: 4 hop products
+])
+def test_plan_sparse_panel_caps_traced_pairs(monkeypatch, budget, ndev, want):
+    """The plan counts the pairs its sweep would trace (nP(nP+1)/2 on one
+    device, nP^2 per ring hop) and goes windowed past the cap."""
+    from plssvm_sparse_fp22.models.base import CSVM
+
+    monkeypatch.delenv("PLSSVM_SPARSE_PANEL_SWEEP", raising=False)
+    if budget is None:
+        monkeypatch.delenv("PLSSVM_K_CACHE_BYTES", raising=False)
+    else:
+        monkeypatch.setenv("PLSSVM_K_CACHE_BYTES", str(budget))
+    monkeypatch.setattr(CSVM, "_device_memory_bytes",
+                        staticmethod(lambda: 1 << 40))
+    csr, y = _random_sparse(2560, 64, density=0.1, seed=71)
+    svm = pt.CSVM(_make_params(csr, y, KernelType.rbf, sparse=True))
+    plan = svm._plan_sparse_panel(csr, 2559, 2560, ndev=ndev)
+    assert plan is not None and plan[1] == want
 
 
 @pytest.mark.parametrize("shapes", [
@@ -745,22 +792,22 @@ def test_plan_sparse_panel_beyond_memory_goes_windowed(monkeypatch):
     (64, 512, 64),   # j side much larger than i side
 ])
 def test_pair_gram_contrib_shape_fuzz(shapes):
-    """The pair kernel's padding/blocking handles arbitrary panel shapes
-    (interpret mode vs the XLA twin)."""
-    from plssvm_sparse_fp22_tpu.ops.pallas_matvec import (
-        pair_gram_contrib, pair_gram_contrib_xla)
+    """The panel-pair product handles arbitrary panel shapes (vs the
+    oracle's cross kernel matrix, both directions)."""
+    from plssvm_sparse_fp22.ops.sparse import pair_gram_contrib
+    from plssvm_sparse_fp22.utils import oracle
 
     Di, Dj, f = shapes
     rng = np.random.default_rng(Di + Dj + f)
-    Xi = jnp.asarray(rng.normal(size=(Di, f)))
-    Xj = jnp.asarray(rng.normal(size=(Dj, f)))
-    vi = jnp.asarray(rng.normal(size=Di))
-    vj = jnp.asarray(rng.normal(size=Dj))
-    kw = dict(same=False, degree=3, gamma=0.05, coef0=1.0)
-    oi_p, oj_p = pair_gram_contrib(KernelType.rbf, Xi, Xj, vi, vj,
-                                   interpret=True, bm=16, **kw)
-    oi_x, oj_x = pair_gram_contrib_xla(KernelType.rbf, Xi, Xj, vi, vj, **kw)
-    np.testing.assert_allclose(np.asarray(oi_p), np.asarray(oi_x),
-                               rtol=1e-9, atol=1e-11)
-    np.testing.assert_allclose(np.asarray(oj_p), np.asarray(oj_x),
-                               rtol=1e-9, atol=1e-11)
+    Xi = rng.normal(size=(Di, f))
+    Xj = rng.normal(size=(Dj, f))
+    vi = rng.normal(size=Di)
+    vj = rng.normal(size=Dj)
+    hyper = dict(degree=3, gamma=0.05, coef0=1.0)
+    oi, oj = pair_gram_contrib(KernelType.rbf, jnp.asarray(Xi),
+                               jnp.asarray(Xj), jnp.asarray(vi),
+                               jnp.asarray(vj), same=False, **hyper)
+    K = oracle.kernel_matrix(KernelType.rbf, Xi, Xj, **hyper)
+    np.testing.assert_allclose(np.asarray(oi), K @ vj, rtol=1e-9, atol=1e-11)
+    np.testing.assert_allclose(np.asarray(oj), K.T @ vi, rtol=1e-9,
+                               atol=1e-11)
